@@ -45,7 +45,15 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
 F32_FLOPS = 67e12
-BF16_TOL = 5e-2          # atol and rtol, kernel vs plain version (bf16 out)
+# Kernel vs plain version on the same inputs: every element within
+# atol + rtol |want|, and every output row (the last axis) within
+# ||got - want|| / ||want|| <= row_rel.  rtol 1.6e-2 is two bf16 ulps, for
+# results that round the other way.  The flash kernel rounds P to bf16 for
+# P V, which moves an output by up to 2^-8 max|v| (hence its atol) and a
+# row by ~4e-3; the others keep f32 to the last rounding.
+TOL = {"rmsnorm": (1e-3, 1.6e-2, 2e-3),
+       "flash_attention": (1e-2, 1.6e-2, 1e-2),
+       "decode_attention": (2e-3, 1.6e-2, 2e-3)}
 LOGITS_REL_TOL = 5e-2    # prefill vs forward logits, max |diff| / max |logit|
 SMALL_TOL = 1e-3         # f32 logits, card vs CPU (sums in another order)
 
@@ -87,6 +95,22 @@ def cuda_ms(torch, fn, flush, reps: int = 10, per_rep: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_rep)
     return statistics.median(times)
+
+
+def compare(got, want, name: str, what: str) -> tuple[float, float]:
+    """Hold a kernel's output against its plain version with TOL[name];
+    print and return (max abs error, max row relative error)."""
+    atol, rtol, row_rel = TOL[name]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    rows = ((g - w).flatten(0, -2).norm(dim=-1)
+            / w.flatten(0, -2).norm(dim=-1).clamp_min(1e-30))
+    max_abs, max_row = float(err.max()), float(rows.max())
+    print(f"{what}: max_abs_err {max_abs:.3e} (tol {atol} + {rtol} |want|) "
+          f"max_row_rel_err {max_row:.3e} (tol {row_rel})", flush=True)
+    require(bool((err <= atol + rtol * w.abs()).all()) and max_row <= row_rel,
+            f"{what} disagrees with its plain version")
+    return max_abs, max_row
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -163,15 +187,10 @@ def check_kernels(torch, F, ops, ref) -> dict:
     rows = []
     for name, shape, kern, plain, lib, nbytes, flops, peak in \
             kernel_cases(torch, F, ops, ref):
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        print(f"kernel {name} {shape}: max_abs_err {float(err.max()):.3e} "
-              f"(tol {BF16_TOL} abs + {BF16_TOL} rel)", flush=True)
-        require(bool((err <= BF16_TOL + BF16_TOL * want.float().abs()).all()),
-                f"{name} {shape} disagrees with its plain version")
+        max_abs, max_row = compare(kern(), plain(), name,
+                                   f"kernel {name} {shape}")
         row = {"name": name, "shape": shape,
-               "max_abs_err": float(err.max()),
+               "max_abs_err": max_abs, "max_row_rel_err": max_row,
                "ms": cuda_ms(torch, kern, flush),
                "plain_ms": cuda_ms(torch, plain, flush),
                "library_ms": cuda_ms(torch, lib, flush)}
@@ -199,28 +218,22 @@ def check_edges(torch, ops, ref) -> dict:
     got = ops.decode_attention(q, kc, vc, lens)
     want = ref.decode_attention_ref(q, kc, vc, lens.clamp(max=256))
     require(bool((got[0] == 0).all()), "decode_attention: lens 0 is not zeros")
-    pairs = {"decode lens 0/3/256/5000": (got[1:], want[1:])}
+    pairs = {"decode lens 0/3/256/5000":
+             ("decode_attention", got[1:], want[1:])}
     for dh, dtype in ((128, torch.bfloat16), (64, torch.bfloat16),
                       (128, torch.float32)):
         q = randn(2, 100, 8, dh, dtype=dtype)
         k, v = randn(2, 300, 2, dh, dtype=dtype), randn(2, 300, 2, dh, dtype=dtype)
         pairs[f"flash non-causal Sq 100 Sk 300 Dh {dh} {dtype}"] = (
-            ops.flash_attention(q, k, v, causal=False),
+            "flash_attention", ops.flash_attention(q, k, v, causal=False),
             ref.flash_attention_ref(q, k, v, causal=False))
     for shape, dtype in (((33, 5120), torch.float32), ((7, 3072), torch.bfloat16),
                          ((5, 40, 64), torch.float32)):
         x, w = randn(*shape, dtype=dtype), randn(shape[-1], dtype=dtype)
-        pairs[f"rmsnorm {list(shape)} {dtype}"] = (ops.rmsnorm(x, w),
-                                                    ref.rmsnorm_ref(x, w))
-    out = {}
-    for case, (got, want) in pairs.items():
-        err = (got.float() - want.float()).abs()
-        out[case] = float(err.max())
-        print(f"edge {case}: max_abs_err {out[case]:.3e} (tol {BF16_TOL} abs "
-              f"+ {BF16_TOL} rel)", flush=True)
-        require(bool((err <= BF16_TOL + BF16_TOL * want.float().abs()).all()),
-                f"edge case {case} disagrees")
-    return out
+        pairs[f"rmsnorm {list(shape)} {dtype}"] = (
+            "rmsnorm", ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w))
+    return {case: compare(got, want, name, f"edge {case}")
+            for case, (name, got, want) in pairs.items()}
 
 
 def check_small(torch) -> dict:

@@ -288,15 +288,10 @@ class Embedding(nn.Module):
             self.unembed.copy_(self.unembed.to(self.param_dtype))
 
 
-def embed_apply(params: Embedding, tokens: torch.Tensor, dtype,
-                onehot: bool = False) -> torch.Tensor:
-    """Token embedding lookup (``onehot``: one-hot matmul, as the reference
-    uses for vocab-sharded tables; the same values on one card)."""
-    table = params.table.to(dtype)
-    if onehot:
-        oh = F.one_hot(tokens.long(), table.shape[0]).to(dtype)
-        return torch.einsum("bsv,vd->bsd", oh, table)
-    return table[tokens.long()]
+def embed_apply(params: Embedding, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Token embedding lookup.  The reference's one-hot matmul exists only
+    for vocab-sharded tables; on one card the gather gives the same values."""
+    return params.table[tokens.long()].to(dtype)
 
 
 def unembed_apply(params: Embedding, x: torch.Tensor) -> torch.Tensor:

@@ -140,8 +140,7 @@ def forward_dense(params: DenseLM, batch: dict, cfg: ModelConfig,
                   run: RunConfig, last_only: bool = False):
     tokens = batch["tokens"]                       # [B, S]
     B, S = tokens.shape
-    x = L.embed_apply(params.embed, tokens, _adtype(cfg),
-                      onehot=cfg.tie_embeddings)
+    x = L.embed_apply(params.embed, tokens, _adtype(cfg))
     ang = _angles(cfg, _positions(batch, B, S, tokens.device))
     for lp in params.layers:
         x = _attn_layer_apply(lp, x, cfg, run, ang, causal=True)
@@ -197,8 +196,7 @@ def decode_dense(params: DenseLM, cache: dict, batch: dict, cfg: ModelConfig,
     seq_lens = batch["seq_lens"]                   # [B]: per-slot position
     B = tokens.shape[0]
     H, Dh = cfg.n_heads, cfg.resolved_head_dim
-    x = L.embed_apply(params.embed, tokens, _adtype(cfg),
-                      onehot=cfg.tie_embeddings)
+    x = L.embed_apply(params.embed, tokens, _adtype(cfg))
     ang = _angles(cfg, seq_lens[:, None])
     wpos = _active_pos(batch, cache["k"].shape[2])
     lens = (seq_lens + 1).to(torch.int32)
@@ -291,8 +289,7 @@ def prefill_dense_with_cache(params: DenseLM, batch: dict, cfg: ModelConfig,
     H, Dh = cfg.n_heads, cfg.resolved_head_dim
     if cache is None:
         cache = init_cache_dense(cfg, B, max_seq, tokens.device)
-    x = L.embed_apply(params.embed, tokens, _adtype(cfg),
-                      onehot=cfg.tie_embeddings)
+    x = L.embed_apply(params.embed, tokens, _adtype(cfg))
     ang = _angles(cfg, _positions(batch, B, S, tokens.device))
     for l, lp in enumerate(params.layers):
         xn = L.rmsnorm_apply(lp.ln1, x, cfg.norm_eps)

@@ -121,11 +121,10 @@ def test_embed_and_unembed_apply(tie):
     emb = _bridge.fill(L.Embedding(cfg, torch.float32),
                        jax.tree.map(np.asarray, jp))
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 6))
-    for onehot in (False, True):
-        _close(L.embed_apply(emb, torch.from_numpy(toks), torch.float32,
-                             onehot=onehot),
-               JL.embed_apply(jp, jnp.asarray(toks), jnp.float32,
-                              onehot=onehot))
+    got = L.embed_apply(emb, torch.from_numpy(toks), torch.float32)
+    for onehot in (False, True):       # the reference's gather and one-hot
+        _close(got, JL.embed_apply(jp, jnp.asarray(toks), jnp.float32,
+                                   onehot=onehot))
     jx, tx = _x((2, 6, cfg.d_model))
     got = L.unembed_apply(emb, tx)
     assert got.dtype == torch.float32
