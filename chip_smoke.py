@@ -7,24 +7,35 @@ Phases, each fatal on failure (exit code != 0, no result line):
   1. card: name and power limit (nvidia-smi), then build the CUDA kernels
      from src/repro_torch/kernels/csrc (nvcc, sm_90a) and report the time;
   2. kernels: each kernel against its plain PyTorch version on the card, in
-     bf16 at the serving path's shapes (then, untimed, edge cases the
+     bf16 at the serving paths' shapes (then, untimed, edge cases the
      serving shapes do not reach), with its median time (CUDA events,
      L2 flushed before every launch), the plain version's and one PyTorch
      library call's (a yardstick only; the port never calls it), and its
      bound: the larger of bytes / 3.35 TB/s and operations / peak rate
-     (989 TFLOP/s bf16 tensor-core for the attention products, 67 TFLOP/s
-     f32 for rmsnorm's element-wise work);
-  3. serve: full-width, full-depth qwen3-14b (40 layers, d_model 5120, bf16,
-     random weights from seed 0) behind repro_torch.serve.ServeEngine: 4
-     slots of 2048 positions, 8 requests with prompts of 100-1000 tokens and
-     32 greedy new tokens each.  The kernel launch counts are set to 0 just
-     before and read just after; every kernel must have run, as many times
-     as the path's shape says.  One request's prefill logits are held
-     against the port's forward pass.
-Between 2 and 3, a small check of the whole path: qwen3-14b's smoke
-config in f32 runs on the card (kernels) and on the CPU (plain versions);
-the forward logits agree within SMALL_TOL and the engines emit the same
-greedy tokens.
+     (989 TFLOP/s bf16 tensor-core for the attention products, 495 TFLOP/s
+     TF32 tensor-core for the SSD scan's f32 products, 67 TFLOP/s f32 for
+     rmsnorm's element-wise work).  No single PyTorch call computes the
+     SSD scan: its yardstick is the port's own plain chunked SSD
+     (models.mamba2.ssd_chunked), reported beside library_ms = null.
+     Then planted faults: broken copies of the ssd_scan kernel, each with
+     one source edit, are built into kernels/build/planted/ and must fail
+     the limits that the right kernel meets on the same inputs;
+  3. small: each served model's smoke config in f32 runs on the card
+     (kernels) and on the CPU (plain versions); the forward logits agree
+     within SMALL_TOL and the engines emit the same greedy tokens;
+  4. serve, once per model of SERVED, behind repro_torch.serve.ServeEngine
+     at its published widths and depth (random weights from seed 0, bf16):
+     qwen3-14b (40 layers, d_model 5120), then mamba2-370m (48 layers,
+     d_model 1024, 32 SSM heads x 64, state 128); 4 slots of 2048
+     positions, 8 requests with prompts of 100-1000 tokens and 32 greedy
+     new tokens each.  The kernel launch counts are set to 0 just before
+     each run and read just after; every kernel of the path must have run,
+     exactly as many times as the path's shape says, and no other.  One
+     request's prefill logits are held against the port's forward pass.
+     Then one decode step over the 4 slots and one 1024-token prefill are
+     timed on the host and traced with torch.profiler (device time by
+     kernel, busy share).  Each phase frees its engine and weights before
+     the next.
 The last lines are the card line, one JSON object with the kernels'
 numbers, and {"ok": true, "device": {...}}.  Without a CUDA card, or
 without the repository's src/ beside this file, it exits non-zero.
@@ -32,11 +43,15 @@ without the repository's src/ beside this file, it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -44,20 +59,28 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
+TF32_TC_FLOPS = 495e12
 F32_FLOPS = 67e12
 # Kernel vs plain version on the same inputs: every element within
 # atol + rtol |want|, and every output row (the last axis) within
 # ||got - want|| / ||want|| <= row_rel.  rtol 1.6e-2 is two bf16 ulps, for
 # results that round the other way.  The flash kernel rounds P to bf16 for
 # P V, which moves an output by up to 2^-8 max|v| (hence its atol) and a
-# row by ~4e-3; the others keep f32 to the last rounding.
+# row by ~4e-3; the others keep f32 to the last rounding.  The SSD scan
+# has two outputs, each with its own limits: y (bf16, rounded once from
+# f32) and the final state (f32, sums in another order than the plain
+# sequential recurrence).
 TOL = {"rmsnorm": (1e-3, 1.6e-2, 2e-3),
        "flash_attention": (1e-2, 1.6e-2, 1e-2),
-       "decode_attention": (2e-3, 1.6e-2, 2e-3)}
+       "decode_attention": (2e-3, 1.6e-2, 2e-3),
+       "ssd_scan.y": (1e-3, 1.6e-2, 4e-3),
+       "ssd_scan.state": (1e-3, 1e-3, 1e-4)}
+OUTPUTS = {"ssd_scan": ("y", "state")}    # kernels with more than one output
 LOGITS_REL_TOL = 5e-2    # prefill vs forward logits, max |diff| / max |logit|
 SMALL_TOL = 1e-3         # f32 logits, card vs CPU (sums in another order)
 
 DEVICE = "cuda"
+SERVED = ("qwen3-14b", "mamba2-370m")
 N_SLOTS, MAX_SEQ, N_REQ, NEW_TOKENS = 4, 2048, 8, 32
 PROMPT_MIN, PROMPT_MAX = 100, 1000
 
@@ -97,20 +120,38 @@ def cuda_ms(torch, fn, flush, reps: int = 10, per_rep: int = 10) -> float:
     return statistics.median(times)
 
 
+def errors(got, want) -> tuple[float, float]:
+    """(max abs error, max relative L2 error of an output row)."""
+    g, w = got.float(), want.float()
+    rows = ((g - w).flatten(0, -2).norm(dim=-1)
+            / w.flatten(0, -2).norm(dim=-1).clamp_min(1e-30))
+    return float((g - w).abs().max()), float(rows.max())
+
+
+def within(got, want, tol_key: str) -> bool:
+    atol, rtol, row_rel = TOL[tol_key]
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= atol + rtol * w.abs()).all()) and \
+        errors(got, want)[1] <= row_rel
+
+
 def compare(got, want, name: str, what: str) -> tuple[float, float]:
     """Hold a kernel's output against its plain version with TOL[name];
     print and return (max abs error, max row relative error)."""
     atol, rtol, row_rel = TOL[name]
-    g, w = got.float(), want.float()
-    err = (g - w).abs()
-    rows = ((g - w).flatten(0, -2).norm(dim=-1)
-            / w.flatten(0, -2).norm(dim=-1).clamp_min(1e-30))
-    max_abs, max_row = float(err.max()), float(rows.max())
+    max_abs, max_row = errors(got, want)
     print(f"{what}: max_abs_err {max_abs:.3e} (tol {atol} + {rtol} |want|) "
           f"max_row_rel_err {max_row:.3e} (tol {row_rel})", flush=True)
-    require(bool((err <= atol + rtol * w.abs()).all()) and max_row <= row_rel,
-            f"{what} disagrees with its plain version")
+    require(within(got, want, name), f"{what} disagrees with its plain version")
     return max_abs, max_row
+
+
+def hold(name: str, got, want, what: str) -> dict:
+    """compare() each output of a kernel: {output: (max abs, max row rel)}."""
+    if name not in OUTPUTS:
+        return {"": compare(got, want, name, what)}
+    return {part: compare(g, w, f"{name}.{part}", f"{what} {part}")
+            for part, g, w in zip(OUTPUTS[name], got, want)}
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -119,9 +160,21 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def ssd_inputs(torch, F, gen, B, L, H, P, N, dtype):
+    """SSD scan inputs as the mamba2 layer makes them: dt from softplus, A
+    from the reference's -exp(linspace(log 1, log 16)), one B/C group."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    A = -torch.exp(torch.linspace(0.0, math.log(16.0), H, device="cuda"))
+    return (randn(B, L, H, P).to(dtype), F.softplus(randn(B, L, H)), A,
+            randn(B, L, 1, N).to(dtype), randn(B, L, 1, N).to(dtype))
+
+
 def kernel_cases(torch, F, ops, ref):
     """(kernel, shape label, kernel fn, plain fn, library fn, bytes, flops,
-    peak) at the serving path's shapes."""
+    peak) at the serving paths' shapes."""
+    from repro_torch.models.mamba2 import ssd_chunked
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape):
@@ -129,7 +182,8 @@ def kernel_cases(torch, F, ops, ref):
             torch.bfloat16)
 
     cases = []
-    for rows, D in ((1024, 5120), (4, 5120), (40960, 128)):
+    for rows, D in ((1024, 5120), (4, 5120), (40960, 128),
+                    (1000, 1024), (1000, 2048), (4, 2048)):
         x, w = randn(rows, D), randn(D)
         cases.append((
             "rmsnorm", f"x[{rows},{D}]",
@@ -166,6 +220,21 @@ def kernel_cases(torch, F, ops, ref):
                                                enable_gqa=True),
         2 * (2 * q.numel() + 2 * KH * Dh * sum(lens_list)) + 4 * B,
         4 * H * Dh * sum(lens_list), BF16_TC_FLOPS))
+    # mamba2-370m's SSD: H 32, head_dim 64, state 128, one prompt per prefill
+    H, P, N = 32, 64, 128
+    for L in (1024, 1000):
+        x, dt, A, Bm, Cm = ssd_inputs(torch, F, gen, 1, L, H, P, N,
+                                      torch.bfloat16)
+        cases.append((
+            "ssd_scan", f"x[1,{L},{H},{P}] B/C[1,{L},1,{N}]",
+            lambda a=(x, dt, A, Bm, Cm): ops.ssd_scan(*a),
+            lambda a=(x, dt, A, Bm, Cm): ref.ssd_scan_ref(*a),
+            # yardstick: the port's plain chunked SSD at the model's chunk
+            lambda a=(x, dt, A, Bm, Cm): ssd_chunked(*a, chunk=256),
+            # x and y bf16, dt f32, A, B and C bf16, final state f32;
+            # the recurrence's least work: S update and C·S, 4 N P a step
+            2 * 2 * L * H * P + 4 * L * H + 4 * H + 2 * 2 * L * N
+            + 4 * H * N * P, 4 * L * H * N * P, TF32_TC_FLOPS))
     return cases
 
 
@@ -176,38 +245,54 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:105"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:108"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:117"),
 }
 # the shape whose times stand for each kernel in the result line
 MAIN_SHAPE = {"rmsnorm": "x[1024,5120]",
-              "flash_attention": "q[1,1024,40,128] kv[1,1024,8,128] causal"}
+              "flash_attention": "q[1,1024,40,128] kv[1,1024,8,128] causal",
+              "ssd_scan": "x[1,1024,32,64] B/C[1,1024,1,128]"}
+# no single PyTorch call computes these: library_ms is null, and the
+# named plain function is timed beside it as a yardstick
+YARDSTICK = {"ssd_scan": "repro_torch.models.mamba2.ssd_chunked (plain PyTorch, chunk 256)"}
 
 
-def check_kernels(torch, F, ops, ref) -> dict:
+def check_kernels(torch, F, ops, ref) -> list:
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     rows = []
     for name, shape, kern, plain, lib, nbytes, flops, peak in \
             kernel_cases(torch, F, ops, ref):
-        max_abs, max_row = compare(kern(), plain(), name,
-                                   f"kernel {name} {shape}")
+        errs = hold(name, kern(), plain(), f"kernel {name} {shape}")
+        lib_ms = cuda_ms(torch, lib, flush)
         row = {"name": name, "shape": shape,
-               "max_abs_err": max_abs, "max_row_rel_err": max_row,
+               "max_abs_err": max(e[0] for e in errs.values()),
+               "max_row_rel_err": max(e[1] for e in errs.values()),
                "ms": cuda_ms(torch, kern, flush),
                "plain_ms": cuda_ms(torch, plain, flush),
-               "library_ms": cuda_ms(torch, lib, flush)}
+               "library_ms": None if name in YARDSTICK else lib_ms}
+        if name in OUTPUTS:
+            row["errors"] = errs
+        if name in YARDSTICK:
+            row["yardstick"] = YARDSTICK[name]
+            row["yardstick_ms"] = lib_ms
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
         print(f"kernel {name} {shape}: ms {row['ms']:.4f} plain_ms "
-              f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
-              f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})",
+              f"{row['plain_ms']:.4f} "
+              + (f"yardstick_ms {lib_ms:.4f} ({YARDSTICK[name]}) "
+                 if name in YARDSTICK else f"library_ms {lib_ms:.4f} ")
+              + f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})",
               flush=True)
         rows.append(row)
     return rows
 
 
-def check_edges(torch, ops, ref) -> dict:
+def check_edges(torch, F, ops, ref) -> dict:
     """Cases the serving shapes do not reach, for correctness only: decode
     rows with lens 0 (zeros, as the Pallas kernel) and lens past S
-    (clamped), non-causal flash with Sq != Sk on both kernel paths, and
-    rmsnorm widths of other dispatch branches."""
+    (clamped), non-causal flash with Sq != Sk on both kernel paths,
+    rmsnorm widths of other dispatch branches, and SSD scans of one
+    position, of a ragged tile, of a batch of two, of an odd number of
+    heads and of the f32 smoke widths."""
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def randn(*shape, dtype=torch.bfloat16):
@@ -232,11 +317,85 @@ def check_edges(torch, ops, ref) -> dict:
         x, w = randn(*shape, dtype=dtype), randn(shape[-1], dtype=dtype)
         pairs[f"rmsnorm {list(shape)} {dtype}"] = (
             "rmsnorm", ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w))
-    return {case: compare(got, want, name, f"edge {case}")
+    for B, L, H, P, N, dtype in ((1, 1, 32, 64, 128, torch.bfloat16),
+                                 (1, 7, 32, 64, 128, torch.bfloat16),
+                                 (1, 517, 32, 64, 128, torch.bfloat16),
+                                 (2, 300, 32, 64, 128, torch.bfloat16),
+                                 (1, 200, 5, 64, 128, torch.bfloat16),
+                                 (2, 40, 16, 8, 16, torch.float32)):
+        a = ssd_inputs(torch, F, gen, B, L, H, P, N, dtype)
+        pairs[f"ssd_scan B {B} L {L} H {H} P {P} N {N} {dtype}"] = (
+            "ssd_scan", ops.ssd_scan(*a), ref.ssd_scan_ref(*a))
+    return {case: hold(name, got, want, f"edge {case}")
             for case, (name, got, want) in pairs.items()}
 
 
-def check_small(torch) -> dict:
+# Planted faults in csrc/ssd_scan.cu: (source text, its broken replacement)
+PLANTED = {
+    "carried state dropped": ("intra[r][k] + decay * inter[r][k]",
+                              "intra[r][k]"),
+    "diagonal excluded (i > j)": ("j <= i ?", "j < i ?"),
+    "dt = 0 tail mask skipped": (
+        "pos < L ? dt[(static_cast<size_t>(b) * L + pos) * H + h] : 0.f",
+        "dt[(static_cast<size_t>(b) * L + min(pos, L - 1)) * H + h]"),
+}
+
+
+def check_planted(torch, F, ops, ref) -> dict:
+    """Build a broken copy of the ssd_scan kernel for each PLANTED fault
+    (nvcc, all at once, into kernels/build/planted/) and hold each, and
+    the right kernel, against the plain version on one input that reaches
+    all three faults: several tiles and a ragged last one (L = 517).  The
+    right kernel must meet both limits and every broken one fail one."""
+    from repro_torch.kernels import _build
+    csrc = _build.CSRC
+    dirs = []
+    for i, (old, new) in enumerate(PLANTED.values()):
+        d = _build.BUILD_DIR / "planted" / f"fault{i}"
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        shutil.copy(csrc / "common.cuh", d)
+        text = (csrc / "ssd_scan.cu").read_text()
+        require(text.count(old) == 1, f"planted fault text {old!r} not unique")
+        (d / "ssd_scan.cu").write_text(text.replace(old, new))
+        dirs.append(d)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        libs = [_build.load(p) for p in pool.map(_build.build, dirs)]
+    print(f"planted: built {len(libs)} broken copies in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    a = ssd_inputs(torch, F, gen, 1, 517, 32, 64, 128, torch.bfloat16)
+    want = ref.ssd_scan_ref(*a)
+    right = _build.library()
+    out = {}
+    for fault, lib in [("none (the right kernel)", right)] + \
+            list(zip(PLANTED, libs)):
+        _build._lib = lib
+        try:
+            got = ops.ssd_scan(*a)
+            torch.cuda.synchronize()
+        finally:
+            _build._lib = right
+        res = {}
+        for part, g, w in zip(OUTPUTS["ssd_scan"], got, want):
+            max_abs, max_row = errors(g, w)
+            res[part] = {"max_abs_err": max_abs, "max_row_rel_err": max_row,
+                         "within": within(g, w, f"ssd_scan.{part}")}
+        passes = all(r["within"] for r in res.values())
+        print(f"planted: {fault}: " + ", ".join(
+            f"{p} max_row_rel_err {r['max_row_rel_err']:.3e} "
+            f"{'passes' if r['within'] else 'FAILS'}" for p, r in res.items()),
+            flush=True)
+        require(passes == (lib is right),
+                f"planted fault {fault!r}: the limits "
+                + ("fail the right kernel" if lib is right else "let it pass"))
+        out[fault] = res
+    return out
+
+
+def check_small(torch, arch: str) -> dict:
     """The port on the card against the port on the CPU, small and in f32."""
     import copy
     import dataclasses
@@ -246,7 +405,7 @@ def check_small(torch) -> dict:
     from repro_torch.configs.base import RunConfig
     from repro_torch.serve import ServeEngine
 
-    cfg = dataclasses.replace(get_smoke_config("qwen3-14b"),
+    cfg = dataclasses.replace(get_smoke_config(arch),
                               param_dtype="float32", activation_dtype="float32")
     run = RunConfig(attention_impl="pallas")
     on_cpu = models.init(0, cfg, device="cpu")
@@ -267,30 +426,19 @@ def check_small(torch) -> dict:
         return {r.request_id: r.generated for r in eng.run_until_idle()}
 
     same = greedy(on_card, DEVICE) == greedy(on_cpu, "cpu")
-    print(f"small: f32 forward logits card vs cpu max_abs_err {err:.3e} "
-          f"(tol {SMALL_TOL}); greedy tokens equal {same}", flush=True)
-    require(err <= SMALL_TOL and same, "the card disagrees with the CPU")
+    print(f"small: {arch} f32 forward logits card vs cpu max_abs_err "
+          f"{err:.3e} (tol {SMALL_TOL}); greedy tokens equal {same}",
+          flush=True)
+    require(err <= SMALL_TOL and same, f"{arch}: the card disagrees with the CPU")
     return {"logits_max_abs_err": err, "greedy_equal": same}
 
 
-def trace_decode(torch, eng, cfg, run) -> dict:
-    """Where a decode step's time goes: one lockstep step over all slots
-    (positions 1000/700/500/300), timed on the host without the profiler,
-    then traced with torch.profiler for its device time by kernel."""
+def profile_step(torch, what: str, step, n: int = 5) -> dict:
+    """Where one step's time goes: step() (which ends in a sync) timed on
+    the host without the profiler, then traced with torch.profiler for its
+    device time by kernel; busy share = device time / host time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import models
-    batch = {"tokens": torch.zeros((N_SLOTS, 1), dtype=torch.int32,
-                                   device=DEVICE),
-             "seq_lens": torch.tensor([1000, 700, 500, 300][:N_SLOTS],
-                                      dtype=torch.int32, device=DEVICE),
-             "active": torch.ones(N_SLOTS, dtype=torch.bool, device=DEVICE)}
-
-    def step():
-        logits, _ = models.decode_step(eng.params, eng.cache, batch, cfg, run)
-        return logits.argmax(dim=-1).cpu()
-
-    n = 5
     step()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -316,11 +464,54 @@ def trace_decode(torch, eng, cfg, run) -> dict:
            "launches_per_step": sum(k[1] for k in kernels),
            "top": [{"kernel": k[2][:90], "ms": k[0], "count": k[1]}
                    for k in kernels[:10]]}
-    print("trace: decode step " + json.dumps(out), flush=True)
+    print(f"trace: {what} " + json.dumps(out), flush=True)
     return out
 
 
-def serve(torch) -> dict:
+def trace_decode(torch, eng, cfg, run) -> dict:
+    """One lockstep decode step over all slots (positions
+    1000/700/500/300)."""
+    from repro_torch import models
+    batch = {"tokens": torch.zeros((N_SLOTS, 1), dtype=torch.int32,
+                                   device=DEVICE),
+             "seq_lens": torch.tensor([1000, 700, 500, 300][:N_SLOTS],
+                                      dtype=torch.int32, device=DEVICE),
+             "active": torch.ones(N_SLOTS, dtype=torch.bool, device=DEVICE)}
+
+    def step():
+        logits, _ = models.decode_step(eng.params, eng.cache, batch, cfg, run)
+        return logits.argmax(dim=-1).cpu()
+
+    return profile_step(torch, "decode step", step)
+
+
+def trace_prefill(torch, eng, cfg, run, prompt: list) -> dict:
+    """One 1024-token prefill into slot 0 of the engine's cache (a whole
+    prefill bucket for the dense family, an exact length for ssm)."""
+    from repro_torch.models import transformer as T
+    batch = {"tokens": torch.tensor([prompt], device=DEVICE),
+             "last_index": torch.tensor([len(prompt) - 1], device=DEVICE)}
+
+    def step():
+        logits, _ = T.prefill_with_cache(eng.params, batch, cfg, run, MAX_SEQ,
+                                         cache=eng.cache, slot=0)
+        return logits.argmax(dim=-1).cpu()
+
+    return profile_step(torch, f"prefill of {len(prompt)} tokens", step, n=3)
+
+
+def path_launches(cfg) -> tuple[dict, dict]:
+    """Kernel launches per prefill and per decode step on a family's path."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":      # ln + gate norm per layer, final norm
+        return ({"rmsnorm": 2 * L + 1, "ssd_scan": L},
+                {"rmsnorm": 2 * L + 1})
+    # dense: ln1, ln2, q-norm, k-norm per layer, final norm
+    return ({"rmsnorm": 4 * L + 1, "flash_attention": L},
+            {"rmsnorm": 4 * L + 1, "decode_attention": L})
+
+
+def serve(torch, arch: str) -> dict:
     import numpy as np
 
     from repro_torch import models
@@ -329,13 +520,13 @@ def serve(torch) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeEngine
 
-    cfg = get_config("qwen3-14b")
+    cfg = get_config(arch)
     run = RunConfig(attention_impl="pallas")
     t0 = time.perf_counter()
     params = models.init(0, cfg, device=DEVICE)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"serve: qwen3-14b {cfg.n_layers} layers d_model {cfg.d_model} "
+    print(f"serve: {arch} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"params {n_params} init_s {time.perf_counter() - t0:.3f}",
           flush=True)
     eng = ServeEngine(cfg, run, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
@@ -367,11 +558,11 @@ def serve(torch) -> dict:
     for r in done:
         require(len(r.generated) == NEW_TOKENS,
                 f"{r.request_id} got {len(r.generated)} tokens")
-    L = cfg.n_layers
-    want = {"rmsnorm": (m["prefills"] + m["decode_steps"]) * (4 * L + 1),
-            "flash_attention": m["prefills"] * L,
-            "decode_attention": m["decode_steps"] * L}
-    require(all(want.values()) and launches == want,
+    per_prefill, per_step = path_launches(cfg)
+    want = {k: m["prefills"] * per_prefill.get(k, 0)
+            + m["decode_steps"] * per_step.get(k, 0) for k in launches}
+    on_path = set(per_prefill) | set(per_step)
+    require(all(want[k] for k in on_path) and launches == want,
             f"launches {launches}, the path needs {want}")
     require(eng.slots.n_free == N_SLOTS, "slots were not all returned")
 
@@ -385,12 +576,13 @@ def serve(torch) -> dict:
     diff = float((logits0 - ref_logits).abs().max())
     scale = float(ref_logits.abs().max())
     agree = int(logits0.argmax()) == int(ref_logits.argmax())
-    print(f"serve: prefill vs forward logits max|diff| {diff:.4e} max|logit| "
-          f"{scale:.4e} rel {diff / scale:.4e} (tol {LOGITS_REL_TOL}) "
-          f"argmax agree {agree}", flush=True)
+    print(f"serve: {arch} prefill vs forward logits max|diff| {diff:.4e} "
+          f"max|logit| {scale:.4e} rel {diff / scale:.4e} "
+          f"(tol {LOGITS_REL_TOL}) argmax agree {agree}", flush=True)
     require(diff <= LOGITS_REL_TOL * scale, "prefill logits disagree with forward")
 
-    res = {"requests": len(done), "new_tokens": NEW_TOKENS,
+    res = {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params, "requests": len(done), "new_tokens": NEW_TOKENS,
            "prompt_lens": [len(p) for p in prompts], "wall_s": wall,
            "ttft_p50_s": statistics.median(ttft), "ttft_s": ttft,
            "prefill_mean_s": m["prefill_s"] / m["prefills"],
@@ -399,13 +591,15 @@ def serve(torch) -> dict:
            "decode_tokens_per_s": m["tokens_generated"] / m["decode_s"],
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches,
-           "launches_per_prefill": {"rmsnorm": 4 * L + 1,
-                                    "flash_attention": L},
-           "launches_per_decode_step": {"rmsnorm": 4 * L + 1,
-                                        "decode_attention": L},
+           "launches_per_prefill": per_prefill,
+           "launches_per_decode_step": per_step,
            "logits_rel_diff": diff / scale,
-           "decode_trace": trace_decode(torch, eng, cfg, run)}
+           "decode_trace": trace_decode(torch, eng, cfg, run),
+           "prefill_trace": trace_prefill(
+               torch, eng, cfg, run,
+               rng.integers(0, cfg.vocab, 1024).tolist())}
     print("serve: " + json.dumps(res), flush=True)
+    del eng, params, fwd, logits0, ref_logits    # the next phase starts empty
     return res
 
 
@@ -435,27 +629,42 @@ def main() -> int:
             print("ptxas: " + line.strip(), flush=True)
 
     rows = check_kernels(torch, F, ops, ref)
-    edges = check_edges(torch, ops, ref)
-    small = check_small(torch)
-    res = serve(torch)
+    edges = check_edges(torch, F, ops, ref)
+    planted = check_planted(torch, F, ops, ref)
+    small = {arch: check_small(torch, arch) for arch in SERVED}
+    served = {}
+    for arch in SERVED:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        print(f"serve: {arch} starts with {torch.cuda.memory_allocated()} "
+              f"bytes allocated", flush=True)
+        served[arch] = serve(torch, arch)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name]
         main_row = next((r for r in mine if r["shape"] == MAIN_SHAPE.get(name)),
                         mine[0])
-        kernels.append({
+        by_path = {arch: res["launches"][name] for arch, res in served.items()
+                   if res["launches"][name]}
+        entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": res["launches"][name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"], "shape": main_row["shape"]})
+            "library_ms": main_row["library_ms"], "shape": main_row["shape"]}
+        if name in YARDSTICK:
+            entry["yardstick"] = YARDSTICK[name]
+            entry["yardstick_ms"] = main_row["yardstick_ms"]
+        kernels.append(entry)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernel_cases": rows, "edges": edges,
-             "small": small, "serve": res,
+             "planted": planted, "small": small, "serve": served,
              "kernels": kernels}, indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -49,9 +49,13 @@ def fill(module: nn.Module, params: dict) -> nn.Module:
     return module
 
 
+_MODULES = {"dense": T.DenseLM, "ssm": T.SSMLM}
+
+
 def load(params: dict, cfg: ModelConfig, *, device="cpu") -> nn.Module:
     """The port's parameter module for ``cfg`` holding ``params``' values."""
-    if cfg.family != "dense":
+    if cfg.family not in _MODULES:
         raise NotImplementedError(f"the {cfg.family!r} family is not ported "
                                   f"to repro_torch yet")
-    return fill(T.DenseLM(cfg, device=T.resolve_device(device)), params)
+    return fill(_MODULES[cfg.family](cfg, device=T.resolve_device(device)),
+                params)

@@ -34,6 +34,8 @@ SIGNATURES = {
                            _I, _P),
     "rt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _F, _I, _P),
+    "rt_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -50,13 +52,13 @@ def _nvcc() -> str:
                        "bin/ on PATH to build the repro_torch kernels")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(csrc: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
+    for path in sorted(csrc.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -70,19 +72,21 @@ def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
     return [(p.returncode, out) for p, out in zip(procs, outs)]
 
 
-def build() -> Path:
-    """Compile csrc/ into the shared library (if not built yet); its path."""
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the sources in ``csrc`` (default: this package's csrc/) into
+    a shared library, if not built yet; its path."""
     global build_log, build_seconds
-    lib_path = BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
+    lib_path = BUILD_DIR / f"librepro_torch_kernels_{_digest(csrc)}.so"
     if lib_path.exists():
         return lib_path
     nvcc = _nvcc()
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / (src.stem + ".o") for src in _sources()]
+        sources = _sources(csrc)
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources]
         results = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-                            for src, obj in zip(_sources(), objs)])
+                            for src, obj in zip(sources, objs)])
         build_log = "".join(out for _, out in results)
         if any(rc for rc, _ in results):
             raise RuntimeError("nvcc failed to compile the kernels:\n" + build_log)
@@ -97,14 +101,20 @@ def build() -> Path:
     return lib_path
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built library, with the C signatures of the entry points it has."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = load(build())
     return _lib

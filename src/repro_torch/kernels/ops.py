@@ -18,12 +18,15 @@ from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+launches = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
+            "ssd_scan": 0}
 
 DECODE_CHUNK = 128      # cache positions per CTA in decode attention's pass 1
 FLASH_MAX_DH = 128
 DECODE_MAX_G = 8
 RMSNORM_MAX_VECTORS = 2048   # 16-byte vectors per row
+SSD_TILE = 64          # positions per tile of the ssd_scan kernel (its kT)
+SSD_MAX_NP = 128       # state_dim and head_dim: multiples of 4, at most this
 
 
 def reset_launches() -> None:
@@ -151,3 +154,52 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _raise_on("decode_attention", err)
     launches["decode_attention"] += 1
     return out
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
+             block_h: int = 8):
+    """Mamba2 SSD scan.  x [B,L,H,P]; dt [B,L,H] f32; A [H] f32; Bm/Cm
+    [B,L,1,N] in x's dtype -> (y [B,L,H,P] in x's dtype, final_state
+    [B,H,N,P] f32).
+
+    ``chunk`` and ``block_h`` are the TPU kernel's blocking knobs; they do
+    not change the function, and the CUDA kernel picks its own tile
+    (``SSD_TILE`` positions, one head per CTA).  As the TPU kernel, it
+    takes a single B/C group (G = 1).  dt and A stay f32: the decay
+    exp(dt·A) must not see them rounded to the activation dtype."""
+    del chunk, block_h
+    Bsz, L, H, P = x.shape
+    if Bm.ndim != 4 or Bm.shape[2] != 1:
+        raise ValueError(f"ssd_scan: B/C {tuple(Bm.shape)}: the kernel "
+                         f"assumes a single B/C group (G=1)")
+    N = Bm.shape[3]
+    if dt.shape != (Bsz, L, H) or A.shape != (H,) or \
+            Bm.shape != (Bsz, L, 1, N) or Cm.shape != Bm.shape or L < 1:
+        raise ValueError(f"ssd_scan: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(Bm.shape)}, C {tuple(Cm.shape)}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: dt and A must be float32, got "
+                        f"{dt.dtype} and {A.dtype}")
+    if _on_cpu(x, dt, A, Bm, Cm):
+        return ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+    code = _check("ssd_scan", x, Bm, Cm)
+    _check("ssd_scan", dt, A)
+    if N % 4 or P % 4 or N > SSD_MAX_NP or P > SSD_MAX_NP:
+        raise ValueError(f"ssd_scan: state_dim {N} and head_dim {P} must be "
+                         f"multiples of 4, at most {SSD_MAX_NP}")
+    n_tiles = -(-L // SSD_TILE)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    final_state = torch.empty((Bsz, H, N, P), **f32)
+    states = torch.empty((Bsz, n_tiles, H, N, P), **f32)      # scratch
+    segs = torch.empty((Bsz, n_tiles, H), **f32)
+    err = _build.library().rt_ssd_scan(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), final_state.data_ptr(),
+        states.data_ptr(), segs.data_ptr(), n_tiles, Bsz, L, H, P, N, code,
+        _stream(x))
+    _raise_on("ssd_scan", err)
+    launches["ssd_scan"] += 1
+    return y, final_state

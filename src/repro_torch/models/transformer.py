@@ -1,8 +1,9 @@
-"""Model assembly — the dense family (decoder-only LM, GQA/MQA + SwiGLU).
+"""Model assembly — the dense family (decoder-only LM, GQA/MQA + SwiGLU)
+and the ssm family (attention-free Mamba2 stack).
 
-Counterpart of ``repro/models/transformer.py``.  Only ``dense`` is ported;
-the other families raise ``NotImplementedError`` at dispatch.  Every ported
-family exposes:
+Counterpart of ``repro/models/transformer.py``.  ``dense`` and ``ssm`` are
+ported; the other families raise ``NotImplementedError`` at dispatch.
+Every ported family exposes:
 
   init(seed, cfg, device="cuda")                  -> params (nn.Module)
   forward(params, batch, cfg, run)                -> (logits, aux)
@@ -19,7 +20,11 @@ prompt's K/V straight into its slot's rows of a pool.
 
 ``run.attention_impl == "pallas"`` selects the hand-written CUDA kernels
 for both attention cores (flash attention in prefill, decode attention in
-decode); every RMSNorm goes through the rmsnorm kernel wrapper.
+decode) and, in the ssm family, the SSD scan kernel in prefill (decode is
+the one-token recurrence); every RMSNorm goes through the rmsnorm kernel
+wrapper.  The ssm cache holds each slot's recurrent state (``ssm``
+[L, B, H, N, P] f32) and conv tail (``conv`` [L, B, W-1, conv_dim]), both
+updated in place.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops
 
 from . import layers as L
+from . import mamba2 as M
 
 _AUX_KEYS = ("moe_load_balance", "moe_z_loss", "moe_drop_fraction")
 
@@ -215,11 +221,107 @@ def decode_dense(params: DenseLM, cache: dict, batch: dict, cfg: ModelConfig,
 
 
 # ===========================================================================
+# ssm (Mamba2)
+# ===========================================================================
+
+class SSMLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device=None):
+        super().__init__()
+        self.ln = L.RMSNorm(cfg.d_model, dtype, device)
+        self.mixer = M.Mamba2(cfg, dtype, device)
+
+
+class SSMLM(nn.Module):
+    """Parameters of a Mamba2 LM: embed, layers[L], final_norm."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        dt = _pdtype(cfg)
+        self.embed = L.Embedding(cfg, dt, device)
+        self.layers = nn.ModuleList(SSMLayer(cfg, dt, device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = L.RMSNorm(cfg.d_model, dt, device)
+
+
+def _ssm_impl(run: RunConfig) -> str:
+    return "pallas" if run.attention_impl == "pallas" else "chunked"
+
+
+@torch.no_grad()
+def init_ssm(gen: torch.Generator, cfg: ModelConfig, device) -> SSMLM:
+    model = SSMLM(cfg, device=device)
+    model.embed.init_weights(cfg, gen)
+    for lp in model.layers:
+        lp.mixer.init_weights(cfg, gen)
+    return model
+
+
+@torch.no_grad()
+def forward_ssm(params: SSMLM, batch: dict, cfg: ModelConfig, run: RunConfig,
+                last_only: bool = False):
+    x = L.embed_apply(params.embed, batch["tokens"], _adtype(cfg))
+    impl = _ssm_impl(run)
+    for lp in params.layers:
+        x = x + M.mamba2_apply(lp.mixer,
+                               L.rmsnorm_apply(lp.ln, x, cfg.norm_eps),
+                               cfg, impl=impl)
+    if last_only:
+        x = x[:, -1:]
+    x = L.rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
+    return L.unembed_apply(params.embed, x), {}
+
+
+def init_cache_ssm(cfg: ModelConfig, batch: int, max_seq: int,
+                   device) -> dict:
+    dm = M.ssm_dims(cfg)
+    return {
+        "ssm": torch.zeros((cfg.n_layers, batch, dm["nheads"], dm["state"],
+                            dm["head_dim"]), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros((cfg.n_layers, batch, dm["conv_width"] - 1,
+                             dm["conv_dim"]), dtype=_adtype(cfg),
+                            device=device),
+    }
+
+
+def _masked_state(new: torch.Tensor, old: torch.Tensor,
+                  active: torch.Tensor | None) -> torch.Tensor:
+    """Recurrent-state update gate: inactive slots keep their old state
+    (a lockstep decode step must not advance slots that are not decoding
+    this tick).  A select on the device: no host sync, no boolean index."""
+    if active is None:
+        return new
+    mask = active.reshape((active.shape[0],) + (1,) * (new.ndim - 1))
+    return torch.where(mask, new, old)
+
+
+@torch.no_grad()
+def decode_ssm(params: SSMLM, cache: dict, batch: dict, cfg: ModelConfig,
+               run: RunConfig):
+    """One decode step.  batch: tokens [B,1], optional active [B] bool.
+    Each layer's state in ``cache`` is updated in place (inactive slots
+    keep theirs); returns (logits [B, V], cache)."""
+    active = batch.get("active")
+    x = L.embed_apply(params.embed, batch["tokens"], _adtype(cfg))
+    for l, lp in enumerate(params.layers):
+        h, ssm_new, conv_new = M.mamba2_decode(
+            lp.mixer, L.rmsnorm_apply(lp.ln, x, cfg.norm_eps), cfg,
+            cache["ssm"][l], cache["conv"][l])
+        x = x + h
+        cache["ssm"][l] = _masked_state(ssm_new, cache["ssm"][l], active)
+        cache["conv"][l] = _masked_state(conv_new, cache["conv"][l], active)
+    x = L.rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
+    logits = L.unembed_apply(params.embed, x)[:, 0]
+    return logits, cache
+
+
+# ===========================================================================
 # Family dispatch
 # ===========================================================================
 
 _FAMILY = {
     "dense": (init_dense, forward_dense, init_cache_dense, decode_dense),
+    "ssm": (init_ssm, forward_ssm, init_cache_ssm, decode_ssm),
 }
 
 
@@ -306,8 +408,36 @@ def prefill_dense_with_cache(params: DenseLM, batch: dict, cfg: ModelConfig,
     return logits, cache
 
 
+@torch.no_grad()
+def prefill_ssm_with_cache(params: SSMLM, batch: dict, cfg: ModelConfig,
+                           run: RunConfig, max_seq: int, *,
+                           cache: dict | None = None, slot: int = 0):
+    """Returns (last_logits [B, V], cache).  Each layer's final state and
+    conv tail go straight into slots [slot, slot + B) of ``cache`` (a new
+    zeroed cache of B slots when None).  The state is taken at the end of
+    the tokens: prompts must be exact-length (the engine does so)."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    if cache is None:
+        cache = init_cache_ssm(cfg, B, max_seq, tokens.device)
+    x = L.embed_apply(params.embed, tokens, _adtype(cfg))
+    impl = _ssm_impl(run)
+    for l, lp in enumerate(params.layers):
+        h, (ssm_state, conv_state) = M.mamba2_apply(
+            lp.mixer, L.rmsnorm_apply(lp.ln, x, cfg.norm_eps), cfg,
+            impl=impl, return_state=True)
+        x = x + h
+        cache["ssm"][l, slot:slot + B] = ssm_state
+        cache["conv"][l, slot:slot + B] = conv_state
+    x = L.rmsnorm_apply(params.final_norm, _last_hidden(x, batch),
+                        cfg.norm_eps)
+    logits = L.unembed_apply(params.embed, x)[:, 0]
+    return logits, cache
+
+
 _PREFILL_CACHE = {
     "dense": prefill_dense_with_cache,
+    "ssm": prefill_ssm_with_cache,
 }
 
 

@@ -34,8 +34,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_scan_covers_the_package():
     names = {p.name for p in FILES}
-    assert {"ops.py", "engine.py", "transformer.py", "_bridge.py",
-            "chip_smoke.py", "qwen3_14b.py"} <= names
+    assert {"ops.py", "engine.py", "transformer.py", "mamba2.py",
+            "_bridge.py", "chip_smoke.py", "qwen3_14b.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

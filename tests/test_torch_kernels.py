@@ -18,7 +18,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.models import mamba2 as jmamba2  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import mamba2  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -126,6 +128,68 @@ def test_ssd_scan_ref_matches_jax_oracle(B, L, H, P, N, G):
     np.testing.assert_allclose(_np(fs), _np(fsr), atol=2e-3, rtol=2e-3)
 
 
+def _ssd_inputs(rng, B, L, H, P, N, G=1):
+    """f32 SSD inputs as numpy: dt from softplus, A < 0 (as the layer)."""
+    x = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, L, H)))).astype(np.float32)
+    A = -np.exp(rng.standard_normal(H) * 0.5).astype(np.float32)
+    Bm = rng.standard_normal((B, L, G, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, L, G, N)).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk,bh", [
+    (1, 64, 8, 16, 16, 16, 4),
+    (2, 100, 16, 32, 64, 32, 8),              # padding tail
+    (1, 48, 4, 64, 128, 16, 4),               # big state
+])
+def test_ssd_scan_plain_matches_pallas(B, L, H, P, N, chunk, bh):
+    """The port's wrapper on CPU tensors (its plain version) against the
+    Pallas kernel in interpret mode, at tests/test_kernels.py's shapes:
+    both outputs, f32."""
+    args = _ssd_inputs(np.random.default_rng(13), B, L, H, P, N)
+    ops.reset_launches()
+    y, fs = ops.ssd_scan(*map(torch.from_numpy, args), chunk=chunk,
+                         block_h=bh)
+    assert ops.launches["ssd_scan"] == 0
+    assert y.shape == (B, L, H, P) and y.dtype == torch.float32
+    assert fs.shape == (B, H, N, P) and fs.dtype == torch.float32
+    yj, fsj = jops.ssd_scan(*map(jnp.asarray, args), chunk=chunk, block_h=bh)
+    np.testing.assert_allclose(_np(y), _np(yj), atol=2e-3, rtol=2e-3)
+    np.testing.assert_allclose(_np(fs), _np(fsj), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("B,L,H,P,N,G,chunk", [
+    (1, 64, 8, 16, 16, 1, 16),
+    (2, 37, 4, 8, 16, 2, 8),                  # grouped B/C, padding tail
+])
+def test_ssd_chunked_matches_jax(B, L, H, P, N, G, chunk, with_init):
+    rng = np.random.default_rng(17)
+    args = _ssd_inputs(rng, B, L, H, P, N, G)
+    init = rng.standard_normal((B, H, N, P)).astype(np.float32) \
+        if with_init else None
+    y, fs = mamba2.ssd_chunked(
+        *map(torch.from_numpy, args), chunk=chunk,
+        init_state=None if init is None else torch.from_numpy(init))
+    yj, fsj = jmamba2.ssd_chunked(
+        *map(jnp.asarray, args), chunk=chunk,
+        init_state=None if init is None else jnp.asarray(init))
+    np.testing.assert_allclose(_np(y), _np(yj), atol=2e-3, rtol=2e-3)
+    np.testing.assert_allclose(_np(fs), _np(fsj), atol=2e-3, rtol=2e-3)
+
+
+def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take():
+    x, dt, A, Bm, Cm = map(torch.from_numpy,
+                           _ssd_inputs(np.random.default_rng(0), 1, 8, 4, 8, 16))
+    with pytest.raises(TypeError, match="dt and A must be float32"):
+        ops.ssd_scan(x, dt.to(torch.bfloat16), A, Bm, Cm)
+    with pytest.raises(ValueError, match="single B/C group"):
+        ops.ssd_scan(x, dt, A, Bm.expand(1, 8, 2, 16), Cm.expand(1, 8, 2, 16))
+    with pytest.raises(ValueError, match="ssd_scan: x"):
+        ops.ssd_scan(x, dt[:, :4], A, Bm, Cm)
+
+
 def test_cpu_tensors_take_the_plain_path_without_launching():
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((4, 2, 8, 16)).astype(np.float32))
@@ -143,8 +207,11 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     torch.testing.assert_close(ops.decode_attention(x[:, 0], kv, kv, lens),
                                ref.decode_attention_ref(x[:, 0], kv, kv, lens),
                                rtol=0, atol=0)
+    args = [torch.from_numpy(a) for a in _ssd_inputs(rng, 2, 9, 4, 8, 16)]
+    for got, want in zip(ops.ssd_scan(*args), ref.ssd_scan_ref(*args)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert ops.launches == {"rmsnorm": 0, "flash_attention": 0,
-                            "decode_attention": 0}
+                            "decode_attention": 0, "ssd_scan": 0}
 
 
 def test_wrappers_refuse_tensors_off_cpu_and_cuda():

@@ -1,6 +1,7 @@
 """repro_torch.serve vs repro.serve: the port's ServeEngine on the CPU emits
-the JAX ServeEngine's greedy tokens on the same (bridged) weights; slot
-reuse; slot-table persistence in the platform's StateStore."""
+the JAX ServeEngine's greedy tokens on the same (bridged) weights, for
+qwen3-14b smoke (dense) and mamba2-370m smoke (ssm); slot reuse; slot-table
+persistence in the platform's StateStore."""
 import dataclasses
 
 import numpy as np
@@ -32,19 +33,23 @@ def weights():
     return jcfg, cfg, jparams, jax.tree.map(np.asarray, jparams)
 
 
-@pytest.fixture(scope="module")
-def jax_greedy(weights):
+def _jax_engine_greedy(jcfg, jrun, jparams):
     """The reference engine's greedy tokens (Auto-typed mesh: the default
     mesh's Explicit axes reject its sharding pins under jax >= 0.9)."""
-    jcfg, _, jparams, _ = weights
     mesh = jax.make_mesh((1, 1), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
-    eng = JaxEngine(jcfg, JaxRun(attention_impl="naive", remat="none"),
-                    jparams, n_slots=2, max_seq=64, mesh=mesh)
+    eng = JaxEngine(jcfg, jrun, jparams, n_slots=2, max_seq=64, mesh=mesh)
     prompts = _prompts(jcfg.vocab)
     for rid, p in prompts.items():
         eng.submit(rid, p, max_new_tokens=5)
     return {r.request_id: r.generated for r in eng.run_until_idle()}
+
+
+@pytest.fixture(scope="module")
+def jax_greedy(weights):
+    jcfg, _, jparams, _ = weights
+    return _jax_engine_greedy(
+        jcfg, JaxRun(attention_impl="naive", remat="none"), jparams)
 
 
 def _prompts(vocab):
@@ -67,6 +72,34 @@ def test_engine_emits_the_reference_engines_greedy_tokens(weights, jax_greedy,
     assert eng.metrics["prefills"] == 3
     assert eng.metrics["tokens_generated"] == 3 * 4
     assert eng.last_prefill_logits.shape == (cfg.vocab,)
+
+
+@pytest.fixture(scope="module")
+def ssm_weights():
+    jcfg = dataclasses.replace(jax_smoke("mamba2-370m"), **F32)
+    cfg = dataclasses.replace(get_smoke_config("mamba2-370m"), **F32)
+    jparams = jax.jit(JM.init, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    return jcfg, cfg, jparams, jax.tree.map(np.asarray, jparams)
+
+
+@pytest.mark.parametrize("impl", ["chunked", "pallas"])
+def test_ssm_engine_emits_the_reference_engines_greedy_tokens(ssm_weights,
+                                                              impl):
+    """mamba2: exact-length prefill into a slot's recurrent state, then
+    lockstep decode; "pallas" is the Pallas SSD kernel (interpret mode) in
+    the reference engine and the port's ssd_scan wrapper here."""
+    jcfg, cfg, jparams, params_np = ssm_weights
+    want = _jax_engine_greedy(
+        jcfg, JaxRun(attention_impl=impl, remat="none"), jparams)
+    eng = ServeEngine(cfg, RunConfig(attention_impl=impl, remat="none"),
+                      _bridge.load(params_np, cfg), n_slots=2, max_seq=64,
+                      device="cpu")
+    for rid, p in _prompts(cfg.vocab).items():
+        eng.submit(rid, p, max_new_tokens=5)
+    done = eng.run_until_idle()
+    assert {r.request_id: r.generated for r in done} == want
+    assert eng.metrics["prefills"] == 3
+    assert eng.slots.n_free == 2
 
 
 def test_slot_reuse_continuous_batching(weights):
